@@ -1,4 +1,4 @@
-"""Voronoi-sweep throughput probe (sites*rays/s/chip).
+"""Voronoi-sweep throughput probe (sites*rays/s on one device).
 
 Builds an n-site irregular grid from the synthetic atmosphere, plans
 one production direction, and times the formal solution with a
@@ -18,9 +18,8 @@ if _ROOT not in sys.path:
 
 
 def main(n_sites=500_000, B=16, order="layer"):
-    cache = os.path.join(_ROOT, ".cache", "jax")
     from voronoirt_tpu.platform import setup
-    setup(x64=False, cache_dir=cache)
+    setup(platform=os.environ.get("VRT_PLATFORM") or None, x64=False)
 
     import jax
     import jax.numpy as jnp
@@ -57,13 +56,14 @@ def main(n_sites=500_000, B=16, order="layer"):
     I0 = jnp.asarray(rng.uniform(0.5, 1.0, (B, len(plan.bc_sites))),
                      jnp.float32)
 
-    # dependency chain of K sweeps; single scalar readback synchronizes
+    # dependency chain of K sweeps, ended by block_until_ready
     K = 3
+
     def chained(S):
         for _ in range(K):
             I = sweep_voronoi(plan, S, alpha, I0)
             S = 0.9 * S + 0.1 * I
-        return float(jnp.sum(S))
+        return jax.block_until_ready(S)
 
     t0 = time.time()
     _ = chained(S)
@@ -83,7 +83,8 @@ def main(n_sites=500_000, B=16, order="layer"):
         "seconds_per_sweep": dt,
         "t_sample": t_sample, "t_tessellate": t_tess, "t_plan": t_plan,
         "t_compile": t_compile, "n_sched_rows": int(n_stages),
-        "device": str(jax.devices()[0]),
+        "device": {"platform": jax.devices()[0].platform,
+                   "kind": jax.devices()[0].device_kind},
     }))
 
 

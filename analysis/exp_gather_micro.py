@@ -1,19 +1,18 @@
-"""Microbenchmark: decompose the Voronoi level-scan cost on the TPU.
+"""Microbenchmark: fit the Voronoi level-scan cost model on the device.
 
-Times, for a synthetic stage shaped like a production direction
-(L levels x W sites x 2 upwinds, B lambda lanes over an N-row array):
+The wavefront schedule's row width (grid/voronoi.py, `_ROW_GATHER_S`,
+`_LEVEL_S`) trades gather padding against scan-step count:
 
-  scan_gather_dus   take(W*2 rows) + FMA + DUS per level  (the sweep's
-                    sequential path)
-  scan_dus_only     FMA on resident data + DUS per level  (no gather)
-  scan_gather_only  take + FMA per level, no DUS (result reduced)
-  one_big_gather    a single take of L*W*2 rows (the hoisted SA bound)
+    cost(cap) = rows(cap) * (4 * cap * row_s + level_s)
 
-The difference isolates where the per-level time goes and what the
-speed-of-light for a slot-ordered sweep is on this chip.
+This times, for a synthetic stage shaped like a production direction
+(L levels x W sites x 2 upwinds, B lambda lanes over an n-row array),
+the sweep's sequential path per level -- take(2W rows) + FMA + DUS --
+at several widths W, and fits t_level(W) = level_s + 2 W row_s by
+least squares.
 
-Usage: python analysis/exp_gather_micro.py [--n 450000] [--L 600]
-       [--W 384] [--B 91]
+Usage: python analysis/exp_gather_micro.py [--n 442368] [--L 400]
+       [--B 91] [--widths 128 512 2048 8192]
 """
 
 import argparse
@@ -29,87 +28,58 @@ if _ROOT not in sys.path:
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--n", type=int, default=450_000)
-    ap.add_argument("--L", type=int, default=600)
-    ap.add_argument("--W", type=int, default=384)
+    ap.add_argument("--n", type=int, default=442_368)
+    ap.add_argument("--L", type=int, default=400)
     ap.add_argument("--B", type=int, default=91)
+    ap.add_argument("--widths", type=int, nargs="+",
+                    default=[128, 512, 2048, 8192])
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args()
 
-    cache = os.path.join(_ROOT, ".cache", "jax")
     from voronoirt_tpu.platform import setup
-    setup(platform=os.environ.get("VRT_PLATFORM") or None, x64=False,
-          cache_dir=cache)
+    setup(platform=os.environ.get("VRT_PLATFORM") or None, x64=False)
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from functools import partial
 
-    N, L, W, B = args.n, args.L, args.W, args.B
+    N, L, B = args.n, args.L, args.B
     rng = np.random.default_rng(0)
-    # upwind rows above the writing row, like a real wavefront schedule
-    starts = (np.arange(L, dtype=np.int32) * W) % max(N - W, 1)
-    up = rng.integers(0, N, size=(L, W, 2)).astype(np.int32)
-    E = rng.uniform(0.1, 0.9, size=(L, W, 2)).astype(np.float32)
-    I0 = rng.uniform(0, 1, size=(N, B)).astype(np.float32)
+    d_I = jnp.asarray(rng.uniform(0, 1, size=(N, B)).astype(np.float32))
+    dev = jax.devices()[0]
+    out = {"N": N, "L": L, "B": B,
+           "device": {"platform": dev.platform, "kind": dev.device_kind},
+           "level_s": {}}
+    for W in args.widths:
+        starts = jnp.asarray(
+            (np.arange(L, dtype=np.int32) * W) % max(N - W, 1))
+        up = jnp.asarray(rng.integers(0, N, size=(L, W, 2)).astype(np.int32))
+        E = jnp.asarray(rng.uniform(0.1, 0.9, size=(L, W, 2)).astype(
+            np.float32))
 
-    d_starts = jnp.asarray(starts)
-    d_up = jnp.asarray(up)
-    d_E = jnp.asarray(E)
-    d_I = jnp.asarray(I0)
+        @jax.jit
+        def scan_gather_dus(I, starts=starts, up=up, E=E, W=W):
+            def body(I, xs):
+                s, u, e = xs
+                i_u = jnp.take(I, u.reshape(-1), axis=0).reshape(W, 2, B)
+                i_new = jnp.sum(e[..., None] * i_u, axis=1)
+                I = jax.lax.dynamic_update_slice(
+                    I, i_new, (s, jnp.zeros((), s.dtype)))
+                return I, None
+            I, _ = jax.lax.scan(body, I, (starts, up, E))
+            return I
 
-    @jax.jit
-    def scan_gather_dus(I):
-        def body(I, xs):
-            s, u, e = xs
-            i_u = jnp.take(I, u.reshape(-1), axis=0).reshape(W, 2, B)
-            i_new = jnp.sum(e[..., None] * i_u, axis=1)
-            I = jax.lax.dynamic_update_slice(
-                I, i_new, (s, jnp.zeros((), s.dtype)))
-            return I, None
-        I, _ = jax.lax.scan(body, I, (d_starts, d_up, d_E))
-        return jnp.sum(I)
-
-    @jax.jit
-    def scan_dus_only(I):
-        def body(I, xs):
-            s, e = xs
-            blk = jax.lax.dynamic_slice(
-                I, (s, jnp.zeros((), s.dtype)), (W, B))
-            i_new = jnp.sum(e[..., None] * blk[:, None], axis=1)
-            I = jax.lax.dynamic_update_slice(
-                I, i_new, (s, jnp.zeros((), s.dtype)))
-            return I, None
-        I, _ = jax.lax.scan(body, I, (d_starts, d_E))
-        return jnp.sum(I)
-
-    @jax.jit
-    def scan_gather_only(I):
-        def body(acc, xs):
-            u, e = xs
-            i_u = jnp.take(I, u.reshape(-1), axis=0).reshape(W, 2, B)
-            return acc + jnp.sum(e[..., None] * i_u), None
-        acc, _ = jax.lax.scan(body, jnp.zeros((), jnp.float32),
-                              (d_up, d_E))
-        return acc
-
-    @jax.jit
-    def one_big_gather(I):
-        i_u = jnp.take(I, d_up.reshape(-1), axis=0)
-        return jnp.sum(i_u)
-
-    out = {"N": N, "L": L, "W": W, "B": B}
-    for name, fn in (("scan_gather_dus", scan_gather_dus),
-                     ("scan_dus_only", scan_dus_only),
-                     ("scan_gather_only", scan_gather_only),
-                     ("one_big_gather", one_big_gather)):
-        _ = float(fn(d_I))          # compile
-        t0 = time.time()
+        jax.block_until_ready(scan_gather_dus(d_I))
+        t0 = time.perf_counter()
         for _ in range(args.reps):
-            _ = float(fn(d_I))
-        dt = (time.time() - t0) / args.reps
-        out[name + "_s"] = dt
-        out[name + "_us_per_level"] = dt / L * 1e6
+            res = scan_gather_dus(d_I)
+        jax.block_until_ready(res)
+        out["level_s"][W] = (time.perf_counter() - t0) / args.reps / L
+
+    W = np.asarray(list(out["level_s"]), dtype=np.float64)
+    t = np.asarray(list(out["level_s"].values()))
+    A = np.stack([np.ones_like(W), 2.0 * W], axis=1)
+    (level_s, row_s), *_ = np.linalg.lstsq(A, t, rcond=None)
+    out["fit"] = {"level_s": float(level_s), "row_s": float(row_s)}
     print(json.dumps(out), flush=True)
 
 

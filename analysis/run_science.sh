@@ -19,8 +19,8 @@ python drivers/line_nlte.py --grid regular \
     --out artifacts/run_regular_192.h5 2>&1 \
     | tee artifacts/run_regular_192.log
 
-# figures on CPU float64 (the x64 TPU bridge is unreliable; synthesis
-# is a single formal solve per mu, fine on the host)
+# figures on CPU float64 (synthesis is a single formal solve per mu,
+# fine on the host)
 VRT_PLATFORM=cpu python analysis/line_figures.py \
     artifacts/run_regular_192.h5 artifacts/run_voronoi_442k.h5 \
     --out artifacts/line_figures --raster 192 128 128 \

@@ -1,11 +1,11 @@
 """Scaling-efficiency harness (the plot_threads_time.py analog).
 
 Runs one jitted Lambda-iteration J pass at increasing mesh sizes and
-reports parallel efficiency (BASELINE.md north star: >=80% at 1 chip /
-1 host / N>=2 hosts).  On a single-chip environment this exercises the
+reports parallel efficiency.  With platform="cpu" it exercises the
 sharding mechanism on virtual CPU devices (mechanism validation, not a
-hardware measurement -- virtual devices share the same cores); on a real
-pod slice the same harness measures true ICI/DCN scaling.
+hardware measurement -- virtual devices share the same cores); with
+several accelerators (e.g. four GPUs of one host) the same harness
+measures scaling across them.
 
 Output: one JSON line per mesh size + an efficiency summary.
 """
@@ -31,8 +31,8 @@ def run(mesh_sizes=(1, 2, 4, 8), platform="cpu", nz=16, nx=16, ny=32,
         n_sites=20000, _presetup=False):
     """mode="mesh": spatial/lambda GSPMD sharding (mesh specs "N" for a
     1-D y mesh or "NxM" for an (x, y) mesh; with hosts=True the x axis
-    is laid out as the DCN axis via make_hybrid_mesh, emulating
-    N-host scaling on a single process).  mode="angles": quadrature
+    is laid out as the process axis via make_hybrid_mesh, emulating
+    N-process scaling in a single process).  mode="angles": quadrature
     MPMD round-robin.  engine="voronoi" runs the irregular engine with
     the site axis sharded instead."""
     import numpy as _np
@@ -85,7 +85,8 @@ def run(mesh_sizes=(1, 2, 4, 8), platform="cpu", nz=16, nx=16, ny=32,
             eng = RegularEngine(atmos, line, cfg)
             if n_dev > 1 and mode == "mesh":
                 if hosts and "x" in axes:
-                    mesh = make_hybrid_mesh(shape, axes, dcn_axes=("x",),
+                    mesh = make_hybrid_mesh(shape, axes,
+                                            process_axes=("x",),
                                             devices=jax.devices()[:n_dev])
                 else:
                     mesh = make_mesh(shape, axes,
@@ -130,7 +131,7 @@ if __name__ == "__main__":
         mode = "angles"
         args.remove("--angles")
     if "--hosts" in args:
-        hosts = True   # "NxM" meshes lay x across (emulated) hosts
+        hosts = True   # "NxM" meshes lay x across (emulated) processes
         args.remove("--hosts")
     if "--voronoi" in args:
         engine = "voronoi"
@@ -149,7 +150,7 @@ if __name__ == "__main__":
                            "collective layout, NOT hardware scaling -- "
                            "all virtual devices share the same cores, "
                            "so wall-clock efficiency saturates at the "
-                           "physical core count.  See BASELINE.md.")}
+                           "physical core count.")}
         record["regular_mesh"] = run((1, 2, 4, 8), _presetup=True)
         record["regular_angles"] = run((1, 3), mode="angles",
                                        _presetup=True)

@@ -21,7 +21,8 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-# VRT_PLATFORM=cpu forces the CPU backend even when jax was preloaded
+# VRT_PLATFORM=cpu|gpu selects the backend (setup raises if another is
+# already active); setup also enables the persistent compile cache
 from voronoirt_tpu.platform import setup as _platform_setup
 _platform_setup(platform=os.environ.get("VRT_PLATFORM") or None, x64=True)
 
@@ -54,8 +55,8 @@ def main():
                          "through profile->sweep->J (production-scale "
                          "memory bound); 0 = all at once")
     ap.add_argument("--f32", action="store_true",
-                    help="float32 end to end (the TPU production mode; "
-                         "default is float64 for validation runs)")
+                    help="float32 end to end (the production mode on the "
+                         "GPU; default is float64 for validation runs)")
     ap.add_argument("--boost", type=float, default=2.0e9,
                     help="collisional-rate boost (rates.jl:3; the "
                          "reference's 2e9 drives the destruction "
@@ -109,6 +110,10 @@ def main():
                  dtype="float32" if args.f32 else "float64",
                  cache_dir=None if args.no_cache else default_cache_dir())
 
+    from voronoirt_tpu.observability.metrics import (CompileClock,
+                                                     device_memory)
+    clock = CompileClock().__enter__()
+    t_start = time.time()
     if args.data:
         atmos = get_atmos(args.data, periodic=False, skip=args.skip)
     else:
@@ -116,7 +121,7 @@ def main():
         atmos = synthetic_atmosphere(nz=nz, nx=nx, ny=ny,
                                      seed=args.atmos_seed)
 
-    t_start = time.time()
+    t_atmos = time.time() - t_start
     ckpt = None
     if args.grid == "regular":
         line = lyman_alpha_line(cfg.nlam_bb, cfg.nlam_bf,
@@ -146,17 +151,32 @@ def main():
             ckpt = CheckpointFile(args.out)
             ckpt.create_voronoi(line, sites, cfg.maxiter)
 
+    t_setup = time.time() - t_start
     res = eng.run(checkpoint=ckpt)
     wall = time.time() - t_start
+    clock.__exit__(None, None, None)
     if ckpt is not None:
         ckpt.write_time(wall)
 
+    dev = jax.devices()[0]
+    mem = device_memory(dev)
     print(json.dumps({
         "grid": args.grid, "iterations": res.iterations,
         "converged": res.converged, "wall_seconds": wall,
         "final_diff": res.convergence[-1],
         "mean_iteration_seconds": (float(np.mean(res.timings))
                                    if res.timings else None),
+        "atmosphere_seconds": t_atmos,
+        "setup_seconds": t_setup,
+        "first_iteration_seconds": (res.timings[0] if res.timings
+                                    else None),
+        "warm_iteration_seconds": (float(np.mean(res.timings[1:]))
+                                   if len(res.timings) > 1 else None),
+        "compile_seconds": clock.seconds,
+        "compile_cache_hits": clock.cache_hits,
+        "peak_bytes_in_use": mem["peak_bytes_in_use"],
+        "bytes_limit": mem["bytes_limit"],
+        "device": {"platform": dev.platform, "kind": dev.device_kind},
     }))
 
 

@@ -18,7 +18,8 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-# VRT_PLATFORM=cpu forces the CPU backend even when jax was preloaded
+# VRT_PLATFORM=cpu|gpu selects the backend (setup raises if another is
+# already active); setup also enables the persistent compile cache
 from voronoirt_tpu.platform import setup as _platform_setup
 _platform_setup(platform=os.environ.get("VRT_PLATFORM") or None, x64=True)
 

@@ -1,4 +1,4 @@
-// Periodic Voronoi neighbour finder for the TPU radiative-transfer build.
+// Periodic Voronoi neighbour finder for the radiative-transfer build.
 //
 // Native-preprocessing equivalent of the reference's voro++ driver
 // (rt_preprocessing/output_sites.cc): container periodic in x and y,

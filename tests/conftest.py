@@ -1,14 +1,14 @@
 """Test harness: 8 virtual CPU devices, float64 enabled.
 
-jax may be preloaded with a TPU platform by the environment, so the
-platform is switched through jax.config (which works post-import as long
-as no computation has run) rather than env vars.  Tests exercise sharding
-on a virtual CPU mesh; the driver validates real multi-chip sharding
-separately via __graft_entry__.dryrun_multichip.
+Tests run on the CPU (sharding on a virtual CPU mesh).  Tests marked
+`gpu` need the card and skip elsewhere; run them on a GPU machine with
+`JAX_PLATFORMS=cuda python -m pytest tests -m gpu`.
 """
+
+import os
 
 import jax
 
 jax.config.update("jax_num_cpu_devices", 8)
-jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_platforms", os.environ.get("JAX_PLATFORMS") or "cpu")
 jax.config.update("jax_enable_x64", True)

@@ -1,6 +1,6 @@
 """float32 production-physics gate (ROADMAP 8).
 
-The TPU transport path runs float32; the physics layer historically
+The production transport path runs float32; the physics layer historically
 needed float64 (Saha/Planck/rate exp ranges).  These tests pin the
 float32-safe reformulations (log-space Planck prefactors, host-folded
 de Broglie constants, reassociated density products, factored 2x2

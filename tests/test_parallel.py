@@ -152,13 +152,14 @@ def test_voronoi_angle_distribution_matches_serial():
 
 
 def test_hybrid_mesh_multihost_layout_matches_unsharded():
-    """make_hybrid_mesh with x as the DCN axis: same-device-layout
-    contract (DCN axis slowest-varying) + full-iteration equality."""
+    """make_hybrid_mesh with x as the process axis: same-device-layout
+    contract (process axis slowest-varying) + full-iteration equality."""
     from voronoirt_tpu.parallel import make_hybrid_mesh
 
-    mesh = make_hybrid_mesh((2, 2, 2), ("x", "lam", "y"), dcn_axes=("x",))
+    mesh = make_hybrid_mesh((2, 2, 2), ("x", "lam", "y"),
+                            process_axes=("x",))
     devs = np.asarray(jax.devices()[:8]).reshape(2, 2, 2)
-    # x (the emulated host axis) must vary slowest
+    # x (the emulated process axis) must vary slowest
     assert (np.asarray(mesh.devices) == devs).all()
 
     atmos = synthetic_atmosphere(nz=8, nx=8, ny=8, seed=3)

@@ -14,6 +14,9 @@ FIX = os.path.join(os.path.dirname(__file__), "golden",
                    "regular_sweep_fixtures.npz")
 REF_GOLD = "/root/reference/data/searchlight_data"
 
+needs_ref = pytest.mark.skipif(
+    not os.path.isdir(REF_GOLD), reason="reference goldens not available")
+
 
 def kvec(theta_deg, phi_deg):
     t, p = np.deg2rad(theta_deg), np.deg2rad(phi_deg)
@@ -71,6 +74,7 @@ class TestSearchlight:
                                              up=up, n_sweeps=3))
         return I[-1] if up else I[0], ax[phys], I0
 
+    @needs_ref
     def test_up_golden_160_45(self):
         """Exact match to the published golden image."""
         img, _, _ = self._run(160.0, 45.0)

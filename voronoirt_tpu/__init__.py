@@ -1,9 +1,9 @@
-"""voronoirt_tpu: TPU-native 3D NLTE radiative transfer.
+"""voronoirt_tpu: 3D NLTE radiative transfer on accelerators.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of
+A from-scratch JAX/XLA framework with the capabilities of
 meudnaes/VoronoiRT (irregular Voronoi + regular-grid short-characteristics
 NLTE radiative transfer for stellar atmospheres; arXiv:2306.01041),
-redesigned TPU-first:
+redesigned for data-parallel devices:
 
   * static per-direction sweep plans -> fixed-shape XLA kernels
   * wavelength/angle as vectorized + sharded batch axes

@@ -31,7 +31,7 @@ CACHE_VERSION = 1
 # plans version independently: schedule-construction changes (cap
 # model, segmentation) must miss old plan entries without invalidating
 # the far more expensive tessellation entries
-PLAN_VERSION = 2
+PLAN_VERSION = 3
 
 _PLAN_ARRAYS = ("layer_sites", "upwind", "weights", "r", "bc_sites",
                 "exact_levels", "relax_levels", "gs_levels", "gs_up_occ")

@@ -3,7 +3,7 @@
 Reference parity: src/voronoi_utils.jl -- VoronoiSites struct (:7-28),
 read_cell (:36-85), BFS layer ordering (:93-174), Delaunay lines
 (:186-245), reduce_layers (:253-269), smallest_angle upwind selection
-(:282-396) -- recast TPU-first: everything direction-dependent (the two
+(:282-396) -- recast for the device: everything direction-dependent (the two
 upwind neighbours, blend weights, path lengths, layer schedule) is
 precompiled host-side into padded fixed-shape arrays (a `VoronoiPlan`),
 so the device sweep is a pure gather/FMA pipeline (SURVEY.md §7).
@@ -15,6 +15,14 @@ import dataclasses
 import warnings
 
 import numpy as np
+
+
+# Level-scan cost model of the wavefront schedule's row width: seconds
+# per gathered (n, B=91) float32 row and per schedule row (scan step),
+# fitted by analysis/exp_gather_micro.py at 442,368 rows on an NVIDIA
+# H100 80GB HBM3 at a 400 W power limit (PERF.md).
+_ROW_GATHER_S = 6.8e-10
+_LEVEL_S = 8.8e-6
 
 
 class GrazingLayerOrderWarning(UserWarning):
@@ -583,19 +591,15 @@ def _assemble_plan(sites, k, up, p, compat, order, n_sweeps, upwind,
         # strictly earlier levels), so levels wider than a cap can split
         # into several schedule rows without changing the result.  The
         # cap (row width) trades gather-row padding against scan-step
-        # count: the sweep is gather-row-bound (~8 ns/row at the fast
-        # >=364-byte lane width, measured on v5e) with a ~20 us fixed
-        # cost per schedule row, so pick the ladder cap minimizing
-        #   rows(cap) * (4 * cap * 8ns + 20us)
-        # (4 gathered rows per slot row: 2 upwinds x {SA, I}).  The old
-        # mean-width cap left 44% of rows as dummy padding at 3.5e6
-        # sites (fill 0.56 -> ~0.9).
+        # count: pick the ladder cap minimizing
+        #   rows(cap) * (4 * cap * _ROW_GATHER_S + _LEVEL_S)
+        # (4 gathered rows per slot row: 2 upwinds x {SA, I}).
         Lx = int(lev[resolved].max())
         wx = np.bincount(lev[resolved], minlength=Lx + 1)[1:]
         best = None
         for cap_c in (128, 256, 512, 1024, 2048, 4096, 8192, 16384):
             rows_c = int(np.sum(-(-wx // cap_c)))
-            cost = rows_c * (4 * cap_c * 8e-9 + 20e-6)
+            cost = rows_c * (4 * cap_c * _ROW_GATHER_S + _LEVEL_S)
             if best is None or cost < best[0]:
                 best = (cost, cap_c)
         cap = best[1]

@@ -2,7 +2,7 @@
 
 SURVEY.md §2 parallelism inventory: the reference iterates the 12
 quadrature directions serially (lambda_iteration.jl:23,84); the
-TPU-native equivalent makes the angle set a first-class parallel axis
+equivalent here makes the angle set a first-class parallel axis
 -- each chip owns a subset of the directions and the weighted J
 accumulation reduces across them.
 

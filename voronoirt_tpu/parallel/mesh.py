@@ -2,7 +2,7 @@
 
 The reference's only parallelism is shared-memory Julia threads over
 wavelengths (lambda_iteration.jl:30,91; SURVEY.md §2 parallelism
-inventory).  The TPU-native equivalents here:
+inventory).  The equivalents here:
 
   * wavelength axis ("lam"): pure data parallelism -- each device owns a
     lambda block through profile/opacity/sweep/J; the only cross-shard
@@ -11,7 +11,7 @@ inventory).  The TPU-native equivalents here:
     reductions.
   * horizontal spatial axis ("y"): columnar domain decomposition.  The
     sweep stencils reach +-1 cell in y (jnp.roll), which GSPMD lowers to
-    collective-permutes of one-column halos over ICI -- the halo-exchange
+    collective-permutes of one-column halos -- the halo-exchange
     design of SURVEY.md §5 "long-context analog" without hand-written
     NCCL-style code.  The sequential z march stays on-chip (the pipeline
     depth axis).
@@ -45,44 +45,45 @@ def make_mesh(axis_sizes, axis_names=("lam", "y"), devices=None):
     return Mesh(grid, axis_names[: len(axis_sizes)])
 
 
-def make_hybrid_mesh(axis_sizes, axis_names, dcn_axes=("x",), devices=None):
-    """Mesh whose `dcn_axes` span hosts (DCN) and the rest ride ICI.
+def make_hybrid_mesh(axis_sizes, axis_names, process_axes=("x",),
+                     devices=None):
+    """Mesh whose `process_axes` span processes and the rest stay within
+    one process's devices.
 
-    Multi-host layout rule (the scaling-book recipe): put the
-    bandwidth-light axis across the data-center network and keep the
-    collective-heavy axes inside a host's ICI domain.  For this
-    framework the spatial "x" axis is DCN-friendly -- its only
+    Layout rule: put the bandwidth-light axis across processes and keep
+    the collective-heavy axes among one process's devices.  For this
+    framework the spatial "x" axis is the light one -- its only
     collectives are the +-1-column halo permutes of the sweep stencils
-    -- while "lam"/"y" reductions stay on ICI.
+    -- while the "lam"/"y" reductions stay inside a process.
 
     In a true multi-process run (jax.distributed.initialize done,
     jax.process_count() > 1) the grid comes from
-    mesh_utils.create_hybrid_device_mesh so each DCN coordinate is one
-    process's local devices.  Single-process (incl. the virtual-CPU
-    test mesh) it reduces to an ordered reshape with the DCN axes
-    slowest-varying -- the same logical layout, mechanism-testable
-    without hardware.
+    mesh_utils.create_hybrid_device_mesh so each coordinate of the
+    process axes is one process's local devices.  In a single process
+    (incl. the virtual-CPU test mesh) it reduces to an ordered reshape
+    with the process axes slowest-varying -- the same logical layout,
+    testable without several processes.
     """
     axis_sizes = tuple(int(s) for s in axis_sizes)
     axis_names = tuple(axis_names)
     if len(axis_sizes) != len(axis_names):
         raise ValueError("axis_sizes and axis_names length mismatch")
-    unknown = set(dcn_axes) - set(axis_names)
+    unknown = set(process_axes) - set(axis_names)
     if unknown:
-        raise ValueError(f"dcn_axes {unknown} not in axis_names")
+        raise ValueError(f"process_axes {unknown} not in axis_names")
     if jax.process_count() > 1:
         from jax.experimental import mesh_utils
-        ici_shape = [1 if n in dcn_axes else s
-                     for n, s in zip(axis_names, axis_sizes)]
-        dcn_shape = [s if n in dcn_axes else 1
-                     for n, s in zip(axis_names, axis_sizes)]
+        local_shape = [1 if n in process_axes else s
+                       for n, s in zip(axis_names, axis_sizes)]
+        across_shape = [s if n in process_axes else 1
+                        for n, s in zip(axis_names, axis_sizes)]
         grid = mesh_utils.create_hybrid_device_mesh(
-            ici_shape, dcn_shape,
+            local_shape, across_shape,
             devices=devices if devices is not None else jax.devices())
         return Mesh(grid, axis_names)
-    # single process: DCN axes outermost so they vary slowest
+    # single process: process axes outermost so they vary slowest
     order = sorted(range(len(axis_names)),
-                   key=lambda i: (axis_names[i] not in dcn_axes, i))
+                   key=lambda i: (axis_names[i] not in process_axes, i))
     inv = np.argsort(order)
     devices = np.asarray(devices if devices is not None else jax.devices())
     total = int(np.prod(axis_sizes))
@@ -103,9 +104,9 @@ def shard_regular(engine, mesh):
 
     Field layouts:  (nlam, nz, nx, ny) -> P("lam", None, "x", "y")
                     (nz, nx, ny)       -> P(None, "x", "y")
-    Requires each sharded extent to divide evenly.  "x" is the
-    DCN-friendly axis (halo-only collectives) for multi-host meshes
-    built with make_hybrid_mesh.
+    Requires each sharded extent to divide evenly.  "x" is the axis to
+    lay across processes (halo-only collectives) in meshes built with
+    make_hybrid_mesh.
     """
     lam_ax = "lam" if "lam" in mesh.axis_names else None
     x_ax = "x" if "x" in mesh.axis_names else None

@@ -6,14 +6,18 @@ sample_lambda_line :259-305 [RH log sampling], sample_lambda_boundfree
 :367-376, source_line :383-395, line extinction alphaline :219-225,
 line-of-sight velocity :175-208, Voigt profile assembly :80-137).
 
-The line is a static (host-side) dataclass of Python floats + numpy
-wavelength grids; per-cell fields (Doppler width dlamD) are arrays.
+The line is a host-side dataclass of Python floats + numpy wavelength
+grids; the per-cell Doppler width dlamD is an array.  It is a pytree
+whose only leaf is dlamD: jitted functions take the line as an ordinary
+argument, so the per-cell field is traced (not baked into every compiled
+program as a constant) and the host-side fields key the compile cache.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -93,8 +97,8 @@ class HydrogenicLine:
     (multiply intensities in IUNIT by constants.IUNIT_SI before use, or
     use the *_iunit properties).
 
-    eq=False keeps identity hashing so a line instance can be a static
-    jit argument (per-instance compilation).
+    Registered as a pytree below: dlamD is the leaf, every other field
+    is static metadata.
     """
     Aji: float
     Bji: float
@@ -129,6 +133,23 @@ class HydrogenicLine:
         """Return a copy with dlamD recomputed for a new grid."""
         dlamD = doppler_width(self.lam0, self.atom_weight, temperature)
         return dataclasses.replace(self, dlamD=dlamD)
+
+
+def _line_flatten(line):
+    meta = tuple((f.name, tuple(line.lam) if f.name == "lam"
+                  else getattr(line, f.name))
+                 for f in dataclasses.fields(line) if f.name != "dlamD")
+    return (line.dlamD,), meta
+
+
+def _line_unflatten(meta, leaves):
+    fields = dict(meta)
+    fields["lam"] = np.asarray(fields["lam"])
+    return HydrogenicLine(dlamD=leaves[0], **fields)
+
+
+jax.tree_util.register_pytree_node(HydrogenicLine, _line_flatten,
+                                   _line_unflatten)
 
 
 def doppler_width(lam0, atom_weight, temperature):

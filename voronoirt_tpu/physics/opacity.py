@@ -111,8 +111,8 @@ def hminus_bf_sigma(lam):
 
 
 # (h^2 / (2 pi m_e k_B))^1.5 precomputed in float64 on the host: h**2
-# ~ 4.4e-67 underflows float32 as a traced intermediate (TPU flushes
-# denormals), so the temperature-free part must be folded first.
+# ~ 4.4e-67 underflows float32 as a traced intermediate, so the
+# temperature-free part must be folded first.
 _LAMDB3_C = float((h**2 / (2.0 * np.pi * m_e * k_B)) ** 1.5)  # ~4.1e-22
 _CHI_HM_OVER_K = float(_CHI_HMINUS / k_B)
 

@@ -11,8 +11,9 @@ from ..constants import h, c_0, k_B, IUNIT_SI
 
 # float32-safe groupings: every constant that would under/overflow float32
 # as a bare intermediate (h*c_0/k_B ~ 1e-2 is fine; 2 h c_0^2 / IUNIT_SI
-# ~ 1e-28 is fine; but lam**5 ~ 1e-39 and lam*k_B ~ 1e-30 flush to zero on
-# TPU, which turns B into inf/inf = NaN at the 22.8 nm bound-free
+# ~ 1e-28 is fine; but lam**5 ~ 1e-39 and lam*k_B ~ 1e-30 are below the
+# float32 normal range and flush to zero wherever denormals are flushed,
+# which turns B into inf/inf = NaN at the 22.8 nm bound-free
 # wavelengths).  The prefactor is therefore evaluated in log space and
 # x with the (h c/k_B)/(lam T) grouping.  Mathematically identical; f64
 # agreement ~1e-15 relative (tests/test_f32_physics.py).

@@ -116,8 +116,8 @@ def Rji_integral(J, sigma, G, lam, compat="reference"):
     (No /1000 in the reference -- the asymmetry is intentional parity.)
 
     Float32 safety: lam**5 ~ 6e-39 at the upper-level bf edge (22.8 nm)
-    is denormal -- TPU flushes it to zero and the Planck term becomes
-    inf (inf * G=0 -> NaN).  Evaluated in IUNIT with a log-space
+    is denormal -- flushed to zero it makes the Planck term inf
+    (inf * G=0 -> NaN).  Evaluated in IUNIT with a log-space
     prefactor instead; mathematically identical.
     """
     lam_b = jnp.asarray(lam).reshape((-1,) + (1,) * (J.ndim - 1))

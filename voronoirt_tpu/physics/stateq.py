@@ -4,8 +4,8 @@ Reference parity: src/populations.jl:147-221 (`get_revised_populations`),
 which builds a 2x2 system per cell (levels 2..3 unknown, level 1 closed by
 mass conservation) and solves with inv(A)*b in a Python-level per-cell
 loop.  Here the 2x2 inverse is written out explicitly and applied as a
-fully vectorized elementwise expression -- the TPU-native equivalent of
-the reference's hot per-cell loop (SURVEY.md §3.1).
+fully vectorized elementwise expression -- the data-parallel equivalent
+of the reference's hot per-cell loop (SURVEY.md §3.1).
 """
 
 import jax.numpy as jnp

@@ -20,23 +20,16 @@ _SQRT_PI = float(np.sqrt(np.pi))
 def humlicek_w(a, v):
     """Complex probability function w(z), z = v + i a, for a >= 0.
 
-    Complex dtype: complex128 on CPU float64 runs (exactness for the
-    oracle tests); complex64 otherwise -- TPU's x64 rewriter has no
-    f64->c128 expansion, and the w4 rational approximation error (~1e-4)
-    dominates c64 rounding anyway.
+    Complex dtype follows the input on every backend: complex128 for
+    float64 inputs (exactness for the oracle tests), complex64 for
+    float32.
     """
     import jax
-    in_dtype = jnp.result_type(a, v)
-    if in_dtype == jnp.float64 and jax.default_backend() == "cpu":
-        rdtype = jnp.float64
-    else:
-        rdtype = jnp.float32
-    # Humlicek works with t = a - i v.  Built with lax.complex from
-    # same-width reals: the eager form (a - 1j*v).astype(c64) promotes
-    # through complex128 under x64, and the TPU x64 rewriter has no
-    # f64->c128 expansion -- it SIGABRTs the (remote) compiler.  x64
-    # runs on TPU (the driver's entry() compile check) must never put
-    # a c128 intermediate in the jaxpr.
+    rdtype = (jnp.float64 if jnp.result_type(a, v) == jnp.float64
+              else jnp.float32)
+    # Humlicek works with t = a - i v, built with lax.complex from
+    # same-width reals: the eager form (a - 1j*v).astype(c64) would
+    # promote a float32 run through complex128 under x64.
     t = jax.lax.complex(jnp.asarray(a, dtype=rdtype),
                         -jnp.asarray(v, dtype=rdtype))
     s = jnp.abs(v) + a
