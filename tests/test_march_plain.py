@@ -118,13 +118,10 @@ def test_xy_step_matches_loop(sxs, sys, fx, fy):
 
 def test_kernel_chosen_only_on_gpu_float32(monkeypatch):
     from voronoirt_tpu.solvers import march_cuda
-    assert not march_cuda.kernel_selected("auto", jnp.float32)  # CPU here
+    assert not march_cuda.kernel_selected(jnp.float32)  # CPU here
     monkeypatch.setattr(march_cuda.jax, "default_backend", lambda: "gpu")
-    assert march_cuda.kernel_selected("auto", jnp.float32)
-    assert not march_cuda.kernel_selected("auto", jnp.float64)
-    assert not march_cuda.kernel_selected("plain", jnp.float32)
-    with pytest.raises(ValueError):
-        march_cuda.kernel_selected("pallas", jnp.float32)
+    assert march_cuda.kernel_selected(jnp.float32)
+    assert not march_cuda.kernel_selected(jnp.float64)
 
 
 def test_kernel_inputs_shapes_and_per_row_f(monkeypatch):
@@ -149,13 +146,82 @@ def test_kernel_inputs_shapes_and_per_row_f(monkeypatch):
 
     args = (plan, "yz", 3, 0.35, i_p, a_c, a_p, s_c, s_p, "cur")
     want = np.asarray(sr._march_plane(*args, geom=geom))
-    monkeypatch.setattr(march_cuda, "kernel_selected", lambda k, d: True)
+    monkeypatch.setattr(march_cuda, "kernel_selected", lambda d: True)
     monkeypatch.setattr(march_cuda, "march_lines", fake)
     got = np.asarray(sr._march_plane(*args, geom=geom))
     assert seen["shape"] == seen["const_shape"] == (6, 4, 5)
     np.testing.assert_array_equal(seen["f"], f)
     assert (seen["s_base"], seen["n_sweeps"]) == (-1, 3)
     np.testing.assert_array_equal(got, want)
+
+
+def _scan_recording(seen):
+    """The plain scan as a stand-in for the kernel's per-device call,
+    recording the operand shapes it is traced with."""
+    def march(coeff, const, f, s_base, n_sweeps):
+        seen.append(const.shape)
+        return sr._march_scan(coeff, const, f[:, None], s_base, n_sweeps)
+    return march
+
+
+def test_kernel_call_partitioned_along_lines():
+    """On a ("lam", "y") mesh the kernel call runs on each device's own
+    lines (B / 2), whole along the march and line axes, inside a plane
+    scan as in the sweep, and equals the unsharded march."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from voronoirt_tpu.parallel import make_mesh
+    from voronoirt_tpu.solvers import march_cuda
+    seen = []
+    march = march_cuda.line_partitioned(_scan_recording(seen))
+    rng = np.random.default_rng(3)
+    Z, N, B, M = 3, 6, 8, 4
+    coeff = rng.uniform(0.0, 0.9, (Z, N, B, M))
+    const = rng.uniform(0.0, 1.0, (Z, N, B, M))
+    f = jnp.asarray(rng.uniform(0.0, 1.0, B))
+    mesh = make_mesh((2, 2), ("lam", "y"))
+    sh = NamedSharding(mesh, P(None, None, "lam", "y"))
+
+    @jax.jit
+    def planes(c, k):
+        return jax.lax.scan(lambda _, ck: (None, march(*ck, f, -1, 3)),
+                            None, (c, k))[1]
+
+    got = planes(jax.device_put(coeff, sh), jax.device_put(const, sh))
+    assert (N, B // 2, M) in seen and (N, B // 2, M // 2) not in seen
+    want = np.stack([sr._march_scan(coeff[z], const[z], f[:, None], -1, 3)
+                     for z in range(Z)])
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-14)
+
+
+def test_sharded_engine_marches_own_lines(monkeypatch):
+    """Through the regular engine on a ("lam", "y") mesh, with the kernel
+    path taken, each device marches half of a mirror group's lines and
+    the iteration equals the unsharded one."""
+    from test_parallel import _run_one_iteration
+    from voronoirt_tpu import Config, synthetic_atmosphere
+    from voronoirt_tpu.engine import RegularEngine
+    from voronoirt_tpu.parallel import make_mesh, shard_regular
+    from voronoirt_tpu.physics import lyman_alpha_line
+    from voronoirt_tpu.physics.atom import pad_line
+    from voronoirt_tpu.solvers import march_cuda
+    seen = []
+    march = march_cuda.line_partitioned(_scan_recording(seen))
+    monkeypatch.setattr(march_cuda, "kernel_selected", lambda d: True)
+    monkeypatch.setattr(march_cuda, "march_lines", lambda c, k, f, s, n: (
+        march(c, k, march_cuda.f_rows(f, k.shape[1], k.dtype), s, n)))
+    atmos = synthetic_atmosphere(nz=8, nx=8, ny=8, seed=3)
+    cfg = Config(nlam_bb=5, nlam_bf=3, quadrature="ul7n12")
+    line = pad_line(lyman_alpha_line(5, 3, jnp.asarray(atmos.temperature)),
+                    12)
+    J0, S0, P0 = _run_one_iteration(RegularEngine(atmos, line, cfg))
+    assert set(seen) == {(8, 48, 8)}        # 4 angles x 12 lambda
+    seen.clear()
+    eng = RegularEngine(atmos, line, cfg)
+    shard_regular(eng, make_mesh((2, 2), ("lam", "y")))
+    J1, S1, P1 = _run_one_iteration(eng)
+    assert (8, 24, 8) in seen
+    np.testing.assert_allclose(J1, J0, rtol=1e-10)
+    np.testing.assert_allclose(P1, P0, rtol=1e-8)
 
 
 @pytest.mark.gpu

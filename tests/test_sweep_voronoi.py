@@ -529,3 +529,28 @@ class TestAdaptiveRelaxExit:
         # two consecutive sub-tol laps end the repeats; the remaining
         # drift is bounded by ~n_skipped_laps * tol * scale
         assert np.abs(I_ad - I_fix).max() / scale < 64 * tol
+
+
+def test_float64_sweep_after_float32_keeps_float64_geometry():
+    """A plan swept in float32 and then in float64 in one process gives
+    the float64 sweep of a fresh plan bitwise: the device geometry
+    (weights, path lengths) is kept per x64 mode, not reused rounded."""
+    import jax
+    pos, _ = _grid_sites(6, jitter=0.2, seed=4)
+    n = len(pos)
+    sites = build_sites(pos, (0, 1, 0, 1, 0, 1), _fields(n))
+    k = kvec(150.0, 40.0)
+    rng = np.random.default_rng(0)
+    S, alpha = rng.uniform(0.5, 2.0, n), rng.uniform(0.5, 3.0, n)
+    plan = build_voronoi_plan(sites, k, up=True, order="wavefront")
+    I0 = np.full(len(plan.bc_sites), 0.7)
+    jax.config.update("jax_enable_x64", False)
+    try:
+        sweep_voronoi(plan, S.astype(np.float32), alpha.astype(np.float32),
+                      I0.astype(np.float32))
+    finally:
+        jax.config.update("jax_enable_x64", True)
+    got = np.asarray(sweep_voronoi(plan, S, alpha, I0))
+    fresh = build_voronoi_plan(sites, k, up=True, order="wavefront")
+    np.testing.assert_array_equal(
+        got, np.asarray(sweep_voronoi(fresh, S, alpha, I0)))

@@ -254,14 +254,14 @@ def _line_interp(col, sys, f):
     return (1.0 - f) * _roll_y(col, sys) + f * _roll_y(col, sys + 1)
 
 
-def _march_step(r, f_line, s_base, n_sweeps, w_cur, cols, centre_cols,
-                I_prev_cols, kernels="auto"):
-    """Shared yz/xz marching kernel over the ordered axis.
+def _march_coefficients(r, f_line, s_base, w_cur, cols, centre_cols,
+                        I_prev_cols):
+    """Pass-invariant coefficients of the shared yz/xz marching kernel.
 
     cols: upwind-column slices (alpha_p, alpha_c, S_p, S_c) each
     (Nx, B, Ny) already gathered in march order at ix + sign; centre_cols:
     (alpha_c, S_c) at ix in march order; I_prev_cols: previous-plane
-    intensity at ix + sign.  Returns the new plane columns in march order.
+    intensity at ix + sign.
 
     Replicates characteristics.jl:420-483 (and the down/xz variants):
       upwind value = w_prev * [prev-plane col, y-interp]
@@ -277,13 +277,11 @@ def _march_step(r, f_line, s_base, n_sweeps, w_cur, cols, centre_cols,
 
     so the invariant part (`const`, one exp evaluation) and the buffer
     coefficient (`coeff`) are computed ONCE as whole-plane vectorized
-    ops, and each Gauss-Seidel pass streams just those two arrays --
-    instead of re-reading seven plane arrays and re-evaluating
-    linear_weights n_sweeps times.  Same math regrouped (distributive);
-    equal to the oracle at the usual 1e-12.
-
-    The sequential part runs as the CUDA kernel of march_cuda.py where
-    march_cuda.kernel_selected says so, and as the plain scan otherwise.
+    ops, and each Gauss-Seidel pass (_march_lines) streams just those
+    two arrays -- instead of re-reading seven plane arrays and
+    re-evaluating linear_weights n_sweeps times.  Same math regrouped
+    (distributive); equal to the oracle at the usual 1e-12.
+    Returns (coeff, const), both (N, B, M) in march order.
     """
     alpha_pw, alpha_cw, S_pw, S_cw = cols
     alpha_c0, S_c0 = centre_cols
@@ -304,10 +302,15 @@ def _march_step(r, f_line, s_base, n_sweeps, w_cur, cols, centre_cols,
     aw, bw, ew = linear_weights(dtau)
     s_up = wp * LI(S_pw) + wcb * LI(S_cw)
     const = ew * (wp * LI(I_prev_cols)) + aw * s_up + bw * S_c0
-    coeff = ew * wcb
+    coeff = jnp.broadcast_to(ew * wcb, const.shape)
+    return coeff, const
 
-    coeff = jnp.broadcast_to(coeff, const.shape)
-    if march_cuda.kernel_selected(kernels, const.dtype):
+
+def _march_lines(coeff, const, f_line, s_base, n_sweeps):
+    """The sequential part: the CUDA kernel of march_cuda.py where
+    march_cuda.kernel_selected says so (a GPU, float32), the plain scan
+    otherwise."""
+    if march_cuda.kernel_selected(const.dtype):
         return march_cuda.march_lines(coeff, const, f_line, s_base,
                                       n_sweeps)
     return _march_scan(coeff, const, f_line, s_base, n_sweeps)
@@ -340,9 +343,20 @@ def _gather_order(N, sign):
     return order, upwind, inv
 
 
-def _march_plane(plan, case, n_sweeps, w_cur, carry_I, alpha_c, alpha_p,
-                 S_c, S_p, centre_from_upper, geom=None, kernels="auto"):
-    """One z-plane of the yz ('x' march) or xz ('y' march) case.
+def _march_axis(plan, case):
+    """(sign, line fraction, stencil shift, path length, march axis) of
+    the yz ('x' march, lines (B, Ny)) or xz ('y' march, lines (B, Nx))
+    case."""
+    if case == "yz":
+        return plan.sign_x, plan.fy_line, plan.sys, plan.r_x, -2
+    return plan.sign_y, plan.fx_line, plan.sxs, plan.r_y, -1
+
+
+def _march_plane_coefficients(plan, case, w_cur, carry_I, alpha_c,
+                              alpha_p, S_c, S_p, centre_from_upper,
+                              geom=None):
+    """(coeff, const, f_line, s_base) of one z-plane of the yz/xz case:
+    the inputs of _march_lines, in march order.
 
     geom: optional dict with traced per-batch-element overrides of the
     plan statics (f_line, r shaped (B, 1)) for angle-batched sweeps;
@@ -352,20 +366,13 @@ def _march_plane(plan, case, n_sweeps, w_cur, carry_I, alpha_c, alpha_p,
     originally-down angles batch with up angles after z-flip
     canonicalization (group_plans).
     """
-    if case == "yz":
-        sign, f_line, s_base = plan.sign_x, plan.fy_line, plan.sys
-        r_m = plan.r_x
-        ax = -2   # march over x; lines are (B, Ny)
-    else:
-        sign, f_line, s_base = plan.sign_y, plan.fx_line, plan.sxs
-        r_m = plan.r_y
-        ax = -1   # march over y; lines are (B, Nx)
+    sign, f_line, s_base, r_m, ax = _march_axis(plan, case)
     if geom is not None:
         f_line = geom["f_line"]
         r_m = geom["r"]
 
     N = alpha_c.shape[ax]
-    order, upwind, inv = _gather_order(N, sign)
+    order, upwind, _ = _gather_order(N, sign)
 
     def take(A, idx):
         # (B, Nx, Ny) -> (N, B, M) with march axis leading
@@ -384,20 +391,31 @@ def _march_plane(plan, case, n_sweeps, w_cur, carry_I, alpha_c, alpha_p,
             take(S_p, upwind), take(S_c, upwind))
     centre_cols = (take(centre_a, order), take(centre_s, order))
     I_prev_cols = take(carry_I, upwind)
+    coeff, const = _march_coefficients(r_m, f_line, s_base, w_cur, cols,
+                                       centre_cols, I_prev_cols)
+    return coeff, const, f_line, s_base
 
-    lines = _march_step(r_m, f_line, s_base, n_sweeps, w_cur, cols,
-                        centre_cols, I_prev_cols, kernels=kernels)
+
+def _march_plane(plan, case, n_sweeps, w_cur, carry_I, alpha_c, alpha_p,
+                 S_c, S_p, centre_from_upper, geom=None):
+    """One z-plane of the yz ('x' march) or xz ('y' march) case (geom:
+    see _march_plane_coefficients)."""
+    coeff, const, f_line, s_base = _march_plane_coefficients(
+        plan, case, w_cur, carry_I, alpha_c, alpha_p, S_c, S_p,
+        centre_from_upper, geom)
+    lines = _march_lines(coeff, const, f_line, s_base, n_sweeps)
     # un-permute march order and put the axis back
+    sign, _, _, _, ax = _march_axis(plan, case)
+    _, _, inv = _gather_order(const.shape[0], sign)
     lines = jnp.take(lines, inv, axis=0)
     return jnp.moveaxis(lines, 0, ax)
 
 
 # ----------------------------------------------------------------- sweep
 
-@partial(jax.jit, static_argnames=("plan", "n_sweeps", "interpolation",
-                                   "kernels"))
+@partial(jax.jit, static_argnames=("plan", "n_sweeps", "interpolation"))
 def sweep(plan: RegularPlan, S, alpha, I0, z_unused=None, n_sweeps=3,
-          interpolation="linear", kernels="auto"):
+          interpolation="linear"):
     """Formal solution along direction plan.k over the whole grid.
 
     Args:
@@ -410,9 +428,6 @@ def sweep(plan: RegularPlan, S, alpha, I0, z_unused=None, n_sweeps=3,
         or 'bezier' (quadratic DELO-Bezier source integration in the xy
         segments; marching segments stay linear -- their one-line buffer
         has no second-upwind sample).
-      kernels: "auto" (the CUDA march kernel on a GPU for float32
-        fields, the plain scan otherwise) or "plain" (always the plain
-        scan: the reference the kernel is checked against).
     Returns:
       I: (nz, B, Nx, Ny).
 
@@ -462,8 +477,7 @@ def sweep(plan: RegularPlan, S, alpha, I0, z_unused=None, n_sweeps=3,
             def plane_body(carry_I, xs, case=seg.case, centre=centre):
                 a_c, a_p, s_c, s_p, wc = xs
                 I_new = _march_plane(plan, case, n_sweeps, wc, carry_I,
-                                     a_c, a_p, s_c, s_p, centre,
-                                     kernels=kernels)
+                                     a_c, a_p, s_c, s_p, centre)
                 return I_new, I_new
 
             xs = (alpha_c, alpha_p, S_c, S_p, jnp.asarray(seg.w_cur))
@@ -558,8 +572,7 @@ def _geom_stack(vals_per_plan, B_lam, extra_dims):
     return jnp.asarray(a.reshape(a.shape + (1,) * extra_dims))
 
 
-def _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags, emit,
-                        kernels="auto"):
+def _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags, emit):
     """Shared body of sweep_batched / sweep_batched_J.
 
     Runs the batched multi-angle sweep and calls emit(plane) on every
@@ -636,7 +649,7 @@ def _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags, emit,
                                      plane(alpha, t),
                                      plane(alpha, t - dirn),
                                      plane(S, t), plane(S, t - dirn),
-                                     centre, geom=geom, kernels=kernels)
+                                     centre, geom=geom)
                 return I_new, emit(I_new)
 
             xs = (steps_t,
@@ -649,10 +662,8 @@ def _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags, emit,
     return jax.tree.map(lambda *xs: jnp.stack(xs, axis=0), *ordered)
 
 
-@partial(jax.jit, static_argnames=("plans", "n_sweeps", "down_flags",
-                                   "kernels"))
-def sweep_batched(plans, S, alpha, I0, n_sweeps=3, down_flags=None,
-                  kernels="auto"):
+@partial(jax.jit, static_argnames=("plans", "n_sweeps", "down_flags"))
+def sweep_batched(plans, S, alpha, I0, n_sweeps=3, down_flags=None):
     """One sweep for several same-signature directions at once.
 
     Args:
@@ -677,15 +688,14 @@ def sweep_batched(plans, S, alpha, I0, n_sweeps=3, down_flags=None,
     batch, so the latency-bound marching segments amortize P ways.
     """
     return _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags,
-                               lambda p: p, kernels=kernels)
+                               lambda p: p)
 
 
 @partial(jax.jit,
-         static_argnames=("plans", "n_sweeps", "down_flags", "unflips",
-                          "kernels"),
+         static_argnames=("plans", "n_sweeps", "down_flags", "unflips"),
          donate_argnums=(1, 2))
 def sweep_batched_J(plans, S, alpha, I0, w, n_sweeps=3, down_flags=None,
-                    unflips=None, kernels="auto"):
+                    unflips=None):
     """Batched multi-angle sweep emitting the weighted J contribution.
 
     Identical numerics to sweep_batched, but instead of materializing
@@ -732,13 +742,12 @@ def sweep_batched_J(plans, S, alpha, I0, w, n_sweeps=3, down_flags=None,
                 dn_acc if dn_acc is not None else zero)
 
     return _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags,
-                               emit, kernels=kernels)
+                               emit)
 
 
 @partial(jax.jit,
-         static_argnames=("plans", "n_sweeps", "flips", "kernels"))
-def sweep_group_J(plans, S, a_list, I0_list, w, n_sweeps=3, flips=None,
-                  kernels="auto"):
+         static_argnames=("plans", "n_sweeps", "flips"))
+def sweep_group_J(plans, S, a_list, I0_list, w, n_sweeps=3, flips=None):
     """One angle group's weighted J contribution from RAW fields.
 
     Performs the canonical flip + batch-stack + batched sweep + reduced
@@ -770,8 +779,7 @@ def sweep_group_J(plans, S, a_list, I0_list, w, n_sweeps=3, flips=None,
                                  n_sweeps=n_sweeps,
                                  down_flags=down_flags,
                                  unflips=tuple((f[0], f[1])
-                                               for f in flips),
-                                 kernels=kernels)
+                                               for f in flips))
     return J_up + jnp.flip(J_dn, axis=0)
 
 
